@@ -40,11 +40,6 @@ def main():
     ap.add_argument("--mesh")
     ap.add_argument("--save", help="volume checkpoint (.npz)")
     ap.add_argument("--preset", choices=["full", "small"], default="full")
-    ap.add_argument("--splat", choices=["auto", "xla", "pallas"],
-                    default="auto",
-                    help="model-depth renderer: auto = Pallas patch kernel "
-                         "on TPU (bit-identical, ~10x faster), XLA scatter "
-                         "elsewhere")
     ap.add_argument("--loop-closure", action="store_true",
                     help="keyframe place recognition + ICP-verified loop "
                          "constraints + pose-graph relaxation "
@@ -84,21 +79,21 @@ def main():
 
     import jax
 
-    from disinfect_slam_tpu.utils.cache import enable as _cache
-
-    _cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from disinfect_slam.utils.cache import enable as _cache
 
-    from disinfect_slam_tpu.config import TSDFConfig
-    from disinfect_slam_tpu.io.config_reader import (
+    _cache()
+
+    from disinfect_slam.config import TSDFConfig
+    from disinfect_slam.io.config_reader import (
         get_depth_factor,
         get_intrinsics,
         load_yaml,
     )
-    from disinfect_slam_tpu.io.png_io import read_image
-    from disinfect_slam_tpu.systems.dense_slam import DenseSLAM
-    from disinfect_slam_tpu.systems.slam import save_matched_trajectory
+    from disinfect_slam.io.png_io import read_image
+    from disinfect_slam.systems.dense_slam import DenseSLAM
+    from disinfect_slam.systems.slam import save_matched_trajectory
 
     if args.config:
         y = load_yaml(args.config)
@@ -126,7 +121,7 @@ def main():
         )
     slam = DenseSLAM(
         intrinsics, h, w, voxel_size=args.voxel, truncation=args.trunc,
-        max_depth=args.max_depth, cfg=cfg, splat_impl=args.splat,
+        max_depth=args.max_depth, cfg=cfg,
         loop_closure=args.loop_closure, kf_every=args.kf_every,
         lc_kwargs=dict(min_gap_frames=args.lc_min_gap),
     )
@@ -137,7 +132,7 @@ def main():
     preint = None
     frame_time = {}
     if args.imu:
-        from disinfect_slam_tpu.systems.imu import ImuPreintegrator
+        from disinfect_slam.systems.imu import ImuPreintegrator
 
         preint = ImuPreintegrator()
         for row in np.loadtxt(args.imu, delimiter=",", ndmin=2):
@@ -247,7 +242,7 @@ def main():
     if args.evaluate:
         import json
 
-        from disinfect_slam_tpu.utils import trajectory_eval as te
+        from disinfect_slam.utils import trajectory_eval as te
 
         gt_path = (
             args.evaluate
@@ -272,7 +267,7 @@ def main():
         print(f"[slam] evaluation vs {gt_path}: {json.dumps(rep)}")
 
     if args.mesh:
-        from disinfect_slam_tpu.ops.mesh import (
+        from disinfect_slam.ops.mesh import (
             extract_mesh_chunked,
             merge_vertices,
             save_obj,
@@ -284,7 +279,7 @@ def main():
         print(f"[slam] mesh: {len(verts)} verts -> {args.mesh}")
 
     if args.save:
-        from disinfect_slam_tpu.io.checkpoint import save_volume
+        from disinfect_slam.io.checkpoint import save_volume
 
         save_volume(args.save, slam.volume)
         print(f"[slam] volume -> {args.save}")

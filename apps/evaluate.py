@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     )
     args = ap.parse_args(argv)
 
-    from disinfect_slam_tpu.utils import trajectory_eval as te
+    from disinfect_slam.utils import trajectory_eval as te
 
     ts_gt, gt = te.load_trajectory(args.groundtruth)
     ts_est, est = te.load_trajectory(args.estimate)

@@ -23,7 +23,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--logdir", required=True, help="dataset directory")
     ap.add_argument("--config", help="camera YAML (Camera.fx..., depthmap_factor)")
@@ -40,17 +40,10 @@ def main():
              "1/32 voxel; ops/mesh.py extract_mesh_chunked)",
     )
     ap.add_argument("--render-dir", help="write raycast PNGs here")
-    ap.add_argument("--renderer",
-                    choices=["auto", "raycast", "splat", "splat_pallas"],
-                    default="auto",
-                    help="parity ray marcher or the splat fast paths; "
-                         "auto = pallas splat on TPU, raycast elsewhere")
+    ap.add_argument("--renderer", choices=["raycast", "splat"],
+                    default="raycast",
+                    help="parity ray marcher or the scatter splat")
     ap.add_argument("--cpu", action="store_true", help="force CPU backend")
-    ap.add_argument("--sampler",
-                    choices=["auto", "gather", "pallas", "pallas_fused"],
-                    default="auto",
-                    help="fusion image sampler (config.py); auto = pallas "
-                         "on TPU, gather elsewhere")
     ap.add_argument(
         "--preset", choices=["full", "small"], default="full",
         help="volume capacity preset (small: quick CPU runs)",
@@ -89,13 +82,14 @@ def main():
                          "restorable onto ANY device count")
     ap.add_argument("--devices", type=int, default=0, metavar="N",
                     help="shard the volume over N devices (DistributedTSDF "
-                         "block-ownership sharding; on a CPU host set "
-                         "XLA_FLAGS=--xla_force_host_platform_device_count=N "
-                         "to validate the multi-chip path)")
+                         "block-ownership sharding, e.g. 4 GPUs; on a CPU "
+                         "host set XLA_FLAGS="
+                         "--xla_force_host_platform_device_count=N for a "
+                         "virtual mesh)")
     ap.add_argument("--debug", action="store_true",
                     help="verbose logging + volume invariant validation "
                          "after every frame (the sanitizer pass)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import logging
 
@@ -103,23 +97,23 @@ def main():
 
     import jax
 
-    from disinfect_slam_tpu.utils.cache import enable as _cache
-
-    _cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from disinfect_slam.utils.cache import enable as _cache
 
-    from disinfect_slam_tpu.config import TSDFConfig
-    from disinfect_slam_tpu.io.config_reader import (
+    _cache()
+
+    from disinfect_slam.config import TSDFConfig
+    from disinfect_slam.io.config_reader import (
         get_depth_factor,
         get_extrinsics,
         get_intrinsics,
         load_yaml,
     )
-    from disinfect_slam_tpu.io.dataset import LoggedReplay, TUMReplay
-    from disinfect_slam_tpu.ops.gather import dump_spatial_tsdf
-    from disinfect_slam_tpu.systems.tsdf_grid import TSDFGrid
-    from disinfect_slam_tpu.utils.timing import StageTimer
+    from disinfect_slam.io.dataset import LoggedReplay, TUMReplay
+    from disinfect_slam.ops.gather import dump_spatial_tsdf
+    from disinfect_slam.systems.tsdf_grid import TSDFGrid
+    from disinfect_slam.utils.timing import StageTimer
 
     if args.config:
         cfg_yaml = load_yaml(args.config)
@@ -139,9 +133,9 @@ def main():
     print(f"[offline] {len(replay)} frames")
     if args.prefetch > 0:
         # decode ahead of the device (the reference imreads inside its
-        # render loop, offline.cc:157-160; at TPU frame times the PNG
-        # decode would otherwise serialize with fusion)
-        from disinfect_slam_tpu.io.dataset import PrefetchReplay
+        # render loop, offline.cc:157-160; at accelerator frame times the
+        # PNG decode would otherwise serialize with fusion)
+        from disinfect_slam.io.dataset import PrefetchReplay
 
         replay = PrefetchReplay(replay, depth=args.prefetch)
 
@@ -165,10 +159,6 @@ def main():
             max_visible=32768,
             max_new_per_round=8192,
         )
-    if args.sampler != "auto":
-        import dataclasses
-
-        cfg = dataclasses.replace(cfg or TSDFConfig(), sampler=args.sampler)
     if args.grid_log2:
         import dataclasses
 
@@ -229,7 +219,7 @@ def main():
         last_pose = frame.cam_T_world
         n += 1
         if args.debug:
-            from disinfect_slam_tpu.utils.validate import validate_volume
+            from disinfect_slam.utils.validate import validate_volume
 
             with timer.span("validate"):
                 validate_volume(grid.snapshot())
@@ -275,7 +265,7 @@ def main():
               f"{len(grid.spill_store)} spilled blocks are in the host "
               "store (page them back in or mesh per-region)")
     if args.mesh:
-        from disinfect_slam_tpu.ops.mesh import (
+        from disinfect_slam.ops.mesh import (
             extract_mesh_chunked,
             merge_vertices,
             save_obj,
@@ -292,7 +282,7 @@ def main():
               f"-> {args.mesh} ({timer.mean_ms('mesh'):.1f} ms)")
 
     if args.render_dir:
-        from disinfect_slam_tpu.viz.headless import render_to_png
+        from disinfect_slam.viz.headless import render_to_png
 
         h, w = 360, 640
         with timer.span("render"):
@@ -317,9 +307,9 @@ def _run_distributed(args, replay, intrinsics, cfg):
     import jax
     import jax.numpy as jnp
 
-    from disinfect_slam_tpu.config import TSDFConfig
-    from disinfect_slam_tpu.ops.integrate import FrameInput
-    from disinfect_slam_tpu.parallel.sharding import DistributedTSDF, make_mesh
+    from disinfect_slam.config import TSDFConfig
+    from disinfect_slam.ops.integrate import FrameInput
+    from disinfect_slam.parallel.sharding import DistributedTSDF, make_mesh
 
     n_dev = args.devices
     avail = len(jax.devices())
@@ -352,8 +342,8 @@ def _run_distributed(args, replay, intrinsics, cfg):
             break
     jax.block_until_ready(dist.volume.tsdf)
     wall = time.perf_counter() - t0
-    # per-shard scaling table: active blocks per shard (the arithmetic
-    # behind multi-chip FPS projections must be visible, VERDICT r2 #6)
+    # per-shard table: active blocks per shard (the load balance of the
+    # block-ownership hash)
     per_shard = np.asarray(dist.sub_cfg.num_blocks - dist.volume.num_free)
     print(f"[offline] distributed done: {n} frames in {wall:.1f} s "
           f"({n / wall:.1f} FPS), {int(per_shard.sum())} active blocks")
@@ -366,7 +356,7 @@ def _run_distributed(args, replay, intrinsics, cfg):
         rec.astype("<f4").tofile(args.save)
         print(f"[offline] saved {rec.shape[0]} voxels to {args.save}")
     if args.save_dist:
-        from disinfect_slam_tpu.parallel.sharding import save_distributed
+        from disinfect_slam.parallel.sharding import save_distributed
 
         nb = save_distributed(args.save_dist, dist)
         print(f"[offline] elastic checkpoint: {nb} blocks -> "

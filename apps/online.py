@@ -11,7 +11,7 @@ Three concurrent streams, like the reference's thread layout
 
 Without real cameras this app runs from a logged dataset directory (the
 same layout `apps/offline.py` replays) but through the full asynchronous
-system stack — the closest TPU-host equivalent of the live pipeline.
+system stack — the closest host-side equivalent of the live pipeline.
 """
 
 import argparse
@@ -25,7 +25,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--logdir", required=True)
     ap.add_argument("--config", help="camera YAML")
@@ -33,8 +33,10 @@ def main():
     ap.add_argument("--trunc", type=float, default=0.2)
     ap.add_argument("--max-depth", type=float, default=4.0)
     ap.add_argument("--fps", type=float, default=30.0, help="playback rate")
+    ap.add_argument("--max-frames", type=int, default=0,
+                    help="stop after N frames (0 = the whole replay)")
     ap.add_argument("--segment", action="store_true", help="run ht/lt segmentation")
-    ap.add_argument("--seg-ckpt", help="segmentation checkpoint (msgpack)")
+    ap.add_argument("--seg-ckpt", help="segmentation checkpoint (npz, models/train.py save_checkpoint)")
     ap.add_argument("--seg-arch", default="unet", choices=["unet", "fast"],
                     help="segmentation model family: 'unet' (quality, "
                     "IoU .97/.99) or 'fast' (latency-first 2-resolution "
@@ -54,9 +56,8 @@ def main():
                     help="stereo baseline in metres (ZED: 0.12)")
     ap.add_argument("--stereo-method", choices=("flat", "pyramid"),
                     default="flat",
-                    help="block matcher: flat full cost volume (TPU "
-                    "default) or coarse-to-fine pyramid (less work; "
-                    "wins on gather-cheap backends)")
+                    help="block matcher: flat full cost volume or "
+                    "coarse-to-fine pyramid (less work, more gathers)")
     ap.add_argument("--max-disp", type=int, default=64)
     ap.add_argument("--auto-recenter", action="store_true",
                     help="dense backend: follow the camera past the "
@@ -64,24 +65,24 @@ def main():
     ap.add_argument("--render-dir")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--preset", choices=["full", "small"], default="full")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import jax
 
-    from disinfect_slam_tpu.utils.cache import enable as _cache
-
-    _cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from disinfect_slam.utils.cache import enable as _cache
 
-    from disinfect_slam_tpu.io.config_reader import (
+    _cache()
+
+    from disinfect_slam.io.config_reader import (
         get_depth_factor,
         get_intrinsics,
         load_yaml,
     )
-    from disinfect_slam_tpu.config import TSDFConfig
-    from disinfect_slam_tpu.io.dataset import LoggedReplay
-    from disinfect_slam_tpu.systems.disinf_system import DISINFSystem
+    from disinfect_slam.config import TSDFConfig
+    from disinfect_slam.io.dataset import LoggedReplay
+    from disinfect_slam.systems.disinf_system import DISINFSystem
 
     cfg = None
     if args.preset == "small":
@@ -100,14 +101,14 @@ def main():
 
     segmenter = None
     if args.segment:
-        from disinfect_slam_tpu.models.segmentation import InferenceEngine, create_model
-        from disinfect_slam_tpu.models.train import load_params
+        from disinfect_slam.models.segmentation import InferenceEngine, create_model
+        from disinfect_slam.models.train import load_params
 
         model = create_model(arch=args.seg_arch)
         if args.seg_ckpt:
-            params = load_params(args.seg_ckpt, model)
+            params = load_params(args.seg_ckpt)
         else:
-            from disinfect_slam_tpu.models.segmentation import load_default_params
+            from disinfect_slam.models.segmentation import load_default_params
 
             params = load_default_params(arch=args.seg_arch)
             if params is None:
@@ -117,24 +118,23 @@ def main():
                 print("[online] WARNING: no shipped weights, using random init")
             else:
                 print("[online] using shipped seg weights")
-        engine = InferenceEngine(model, params)
+        # one engine per frame size: it resizes its ht/lt output
+        # straight to the depth resolution
+        engines = {}
 
         def segmenter(rgb):
-            ht, lt = engine.infer_one(rgb)
-            h, w = rgb.shape[:2]
-            import cv2
-
-            return (
-                cv2.resize(ht, (w, h)),
-                cv2.resize(lt, (w, h)),
-            )
+            hw = rgb.shape[:2]
+            if hw not in engines:
+                engines[hw] = InferenceEngine(model, params, out_size=hw)
+            ht, lt = engines[hw].infer_one(rgb)
+            return ht, lt
 
     if args.stereo:
         # stereo-only sensor: depth from block matching on the rectified
         # pair (ops/stereo.py), rgb from the left view — no RGBD camera
         # needed (the reference requires an L515 here, online.cc:23-70)
-        from disinfect_slam_tpu.io.dataset import LoggedStereoReplay, ReplayFrame
-        from disinfect_slam_tpu.ops.stereo import StereoDepthEstimator
+        from disinfect_slam.io.dataset import LoggedStereoReplay, ReplayFrame
+        from disinfect_slam.ops.stereo import StereoDepthEstimator
 
         stereo_replay = LoggedStereoReplay(args.logdir)
         est = StereoDepthEstimator(
@@ -177,7 +177,7 @@ def main():
         # H2D + jitted seg+fuse program (the honest online FPS)
         import dataclasses as _dc
 
-        from disinfect_slam_tpu.systems.online_step import FusedOnlineStep
+        from disinfect_slam.systems.online_step import FusedOnlineStep
 
         first = next(iter(replay))
         fh, fw = first.depth.shape
@@ -190,7 +190,7 @@ def main():
             # reuse the model/params resolved above (honors --seg-ckpt;
             # the fused path previously reloaded the shipped defaults
             # and silently ignored a user checkpoint)
-            seg_model, seg_params = engine.model, engine.params
+            seg_model, seg_params = model, params
             if seg_params is None:
                 print("[online] WARNING: no seg weights; --fused runs seg-off")
                 seg_model = None
@@ -203,6 +203,8 @@ def main():
         for frame in replay:
             step.step(frame.rgb, frame.depth, frame.cam_T_world)
             n += 1
+            if args.max_frames and n >= args.max_frames:
+                break
         step.block_until_ready()
         wall = time.perf_counter() - t0
         print(
@@ -211,8 +213,8 @@ def main():
             f"{step.num_active_blocks()} active blocks"
         )
         if args.render_dir:
-            from disinfect_slam_tpu.systems.tsdf_grid import TSDFGrid
-            from disinfect_slam_tpu.viz.headless import render_to_png
+            from disinfect_slam.systems.tsdf_grid import TSDFGrid
+            from disinfect_slam.viz.headless import render_to_png
 
             grid = TSDFGrid(args.voxel, args.trunc, cfg=ocfg)
             grid.volume = step.volume
@@ -255,6 +257,8 @@ def main():
         for i, frame in enumerate(replay):
             system.feed_rgbd_frame(frame.rgb, frame.depth, int(i * 1000 * period))
             n += 1
+            if args.max_frames and n >= args.max_frames:
+                break
             if n % 30 == 0:
                 depth_q = system.tsdf.queue_depth()
                 print(
@@ -276,7 +280,7 @@ def main():
         )
 
         if args.render_dir:
-            from disinfect_slam_tpu.viz.headless import render_to_png
+            from disinfect_slam.viz.headless import render_to_png
 
             last_pose = replay.entries[-1][1]
             render_to_png(

@@ -56,17 +56,17 @@ def main():
 
     import jax
 
-    from disinfect_slam_tpu.utils.cache import enable as _cache
-
-    _cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from disinfect_slam.utils.cache import enable as _cache
 
-    from disinfect_slam_tpu.systems.server import ReconstructionService, make_server
+    _cache()
+
+    from disinfect_slam.systems.server import ReconstructionService, make_server
 
     intr = (args.fx, args.fy, args.cx, args.cy)
     if args.mode == "slam":
-        from disinfect_slam_tpu.systems.dense_slam import DenseSLAM
+        from disinfect_slam.systems.dense_slam import DenseSLAM
 
         system = DenseSLAM(
             intr, args.height, args.width,
@@ -74,7 +74,7 @@ def main():
             host_spill=args.spill,
         )
     else:
-        from disinfect_slam_tpu.systems.disinf_system import DISINFSystem
+        from disinfect_slam.systems.disinf_system import DISINFSystem
 
         system = DISINFSystem(
             intr, voxel_size=args.voxel, truncation=args.trunc,
@@ -87,11 +87,11 @@ def main():
 
     replay = None
     if args.replay or args.synthetic:
-        from disinfect_slam_tpu.systems.server import ReplayDriver
+        from disinfect_slam.systems.server import ReplayDriver
 
         frames = []
         if args.replay:
-            from disinfect_slam_tpu.io.dataset import LoggedReplay, TUMReplay
+            from disinfect_slam.io.dataset import LoggedReplay, TUMReplay
 
             src = (
                 TUMReplay(args.replay)

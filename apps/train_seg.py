@@ -4,12 +4,12 @@
 The reference's model weights were never published (its inference engine
 loads an external TorchScript .pt, segmentation/inference.cc:39-44); this
 closes the gap by training natively and shipping a checkpoint.  The net
-is fully convolutional, so training runs at a reduced resolution (fast on
-CPU when the TPU is unreachable) and the weights apply unchanged at the
-640x352 inference contract.
+is fully convolutional, so training runs at a reduced resolution (fast
+enough on a CPU) and the weights apply unchanged at the 640x352
+inference contract.
 
   python apps/train_seg.py --cpu --steps 400 \
-      --out disinfect_slam_tpu/models/weights/seg_unet_f16.npz
+      --out disinfect_slam/models/weights/seg_unet_f16.npz
 """
 
 import argparse
@@ -38,7 +38,7 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    from disinfect_slam_tpu.utils import cache
+    from disinfect_slam.utils import cache
 
     cache.enable()
 
@@ -46,9 +46,9 @@ def main():
     import numpy as np
     import optax
 
-    from disinfect_slam_tpu.models.segmentation import create_model
-    from disinfect_slam_tpu.models.synth_data import make_batch
-    from disinfect_slam_tpu.models.train import (
+    from disinfect_slam.models.segmentation import create_model
+    from disinfect_slam.models.synth_data import make_batch
+    from disinfect_slam.models.train import (
         TrainState,
         make_eval_step,
         make_train_step,
@@ -93,7 +93,7 @@ def main():
             )
 
     out = args.out or os.path.join(
-        os.path.dirname(__file__), "..", "disinfect_slam_tpu", "models",
+        os.path.dirname(__file__), "..", "disinfect_slam", "models",
         "weights", f"seg_{args.arch}_f16.npz",
     )
     os.makedirs(os.path.dirname(out), exist_ok=True)

@@ -2,7 +2,7 @@
 """Offline volume viewer: load a checkpoint and render orbit views.
 
 The reference's interactive GLFW/ImGui viewer (modules/renderer_module)
-has no display to attach to on a TPU host; this renders the same rgba +
+has no display to attach to on a server host; this renders the same rgba +
 normal-shaded views (and optionally a mesh) from an orbit of virtual
 cameras into PNGs.
 
@@ -33,20 +33,20 @@ def main():
 
     import jax
 
-    from disinfect_slam_tpu.utils.cache import enable as _cache
-
-    _cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from disinfect_slam.utils.cache import enable as _cache
+
+    _cache()
 
     import jax.numpy as jnp
 
-    from disinfect_slam_tpu.core.geometry import SE3, CameraIntrinsics, CameraParams
-    from disinfect_slam_tpu.io.checkpoint import load_volume
-    from disinfect_slam_tpu.io.png_io import write_image
-    from disinfect_slam_tpu.ops.raycast import raycast
-    from disinfect_slam_tpu.ops.render_fast import splat_render
-    from disinfect_slam_tpu.viz.headless import look_at
+    from disinfect_slam.core.geometry import SE3, CameraIntrinsics, CameraParams
+    from disinfect_slam.io.checkpoint import load_volume
+    from disinfect_slam.io.png_io import write_image
+    from disinfect_slam.ops.raycast import raycast
+    from disinfect_slam.ops.render_fast import splat_render
+    from disinfect_slam.viz.headless import look_at
 
     vol = load_volume(args.volume)
     print(f"[view] volume: {int(vol.num_active_blocks)} blocks, "

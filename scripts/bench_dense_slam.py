@@ -1,6 +1,8 @@
 #!/usr/bin/env python
-"""DenseSLAM steady-state frame time on the live backend (the honest
-number for the r2 '4-5 FPS local' claim — VERDICT r2 #8)."""
+"""DenseSLAM steady-state frame time on the default JAX backend.
+
+  python scripts/bench_dense_slam.py [--track-scale N]
+"""
 import os
 import sys
 import time
@@ -10,29 +12,26 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 
 from bench import make_orbit_frames  # noqa: E402
-from disinfect_slam_tpu.config import TSDFConfig  # noqa: E402
-from disinfect_slam_tpu.systems.dense_slam import DenseSLAM  # noqa: E402
+from disinfect_slam.config import TSDFConfig  # noqa: E402
+from disinfect_slam.systems.dense_slam import DenseSLAM  # noqa: E402
+from disinfect_slam.utils import cache  # noqa: E402
+
+cache.enable()
 
 W, H = 640, 480
 K = (525.1, 525.3, 319.6, 239.7)
 
 
 def main():
-    ts = int(os.environ.get("DSTPU_TRACK_SCALE", "1"))
+    ts = 1
     if len(sys.argv) > 1 and sys.argv[1] == "--track-scale":
         ts = int(sys.argv[2])
     cfg = TSDFConfig(
         voxel_size=0.01, truncation=0.06,
         num_blocks_log2=16, max_candidates=32768, max_visible=16384,
         max_new_per_round=8192, backend="dense", grid_log2=8,
-        sampler_splits=2, alloc_stride=2,
     )
     slam = DenseSLAM(K, H, W, voxel_size=0.01, truncation=0.06,
                      max_depth=4.0, cfg=cfg, track_res_scale=ts)

@@ -1,6 +1,5 @@
 #!/usr/bin/env python
-"""Mesh-export wall-clock after the r4 pipelined-D2H + q16 rework
-(VERDICT r4 #8: full-volume OBJ < 3 s; the rework landed unmeasured).
+"""Mesh-export wall-clock (target: full-volume OBJ in < 3 s).
 
 Builds the bench-scale volume (30 replay frames, 4 mm voxels), then
 times:
@@ -10,7 +9,7 @@ times:
   4. a 2 m-bbox extraction at 5 Hz bridge cadence (the
      reconstTimerCallback workload, ros_offline.cc:320-350)
 
-Run on an idle host (PROGRESS.md contention rule).
+  python scripts/bench_mesh.py
 """
 import os
 import sys
@@ -22,20 +21,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 
 from bench import load_replay_frames, make_orbit_frames  # noqa: E402
-from disinfect_slam_tpu.config import TSDFConfig  # noqa: E402
-from disinfect_slam_tpu.core.geometry import (  # noqa: E402
+from disinfect_slam.config import TSDFConfig  # noqa: E402
+from disinfect_slam.core.geometry import (  # noqa: E402
     SE3, CameraIntrinsics, CameraParams,
 )
-from disinfect_slam_tpu.core.state import TSDFVolume  # noqa: E402
-from disinfect_slam_tpu.ops import integrate as I  # noqa: E402
-from disinfect_slam_tpu.ops.mesh import (  # noqa: E402
+from disinfect_slam.core.state import TSDFVolume  # noqa: E402
+from disinfect_slam.ops import integrate as I  # noqa: E402
+from disinfect_slam.ops.mesh import (  # noqa: E402
     extract_mesh_chunked, merge_vertices, save_obj,
 )
 
@@ -46,7 +40,6 @@ CFG = TSDFConfig(
     voxel_size=0.004, truncation=0.024,
     num_buckets_log2=19, num_blocks_log2=18,
     max_candidates=32768, max_visible=32768, max_new_per_round=8192,
-    max_probe=16, sampler_splits=2, alloc_stride=4, alloc_every=3,
 )
 
 
@@ -90,7 +83,7 @@ def main():
           f"{len(faces)} faces, {sz:.1f} MB)", flush=True)
 
     # 4: bridge cadence — 2 m bbox around the camera at 5 Hz
-    from disinfect_slam_tpu.ops.gather import BoundingCube, gather_voxels
+    from disinfect_slam.ops.gather import BoundingCube, gather_voxels
 
     # center the box 1.5 m ahead of the camera — an eye-centered box sits
     # in free space (the camera orbits OUTSIDE the geometry) and gathers

@@ -55,7 +55,7 @@ def bench_orbit_frame(i, n_frames=N_FRAMES, w=W, h=H, K=K):
 
 
 def main():
-    from disinfect_slam_tpu.io.png_io import write_image
+    from disinfect_slam.io.png_io import write_image
 
     os.makedirs(DATASET_DIR, exist_ok=True)
     traj_rows = []

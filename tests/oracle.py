@@ -2,7 +2,7 @@
 
 This is a *test oracle only* — a dict-based re-statement of the
 reference's integration pipeline (voxel_tsdf.cu) used to validate the
-TPU engine's outputs voxel-for-voxel.  It follows the CUDA logic
+JAX engine's outputs voxel-for-voxel.  It follows the CUDA logic
 exactly: per-pixel DDA allocation gated on full-corner block visibility,
 any-corner visibility gathering, weighted fusion with roundf-style
 rounding, and min-|tsdf| space carving.  Inner loops are vectorized with
@@ -181,6 +181,42 @@ class OracleVolume:
         for b in visible:
             if np.min(np.abs(self.blocks[b]["tsdf"])) >= self.carve_threshold:
                 del self.blocks[b]
+
+
+def volume_metrics(vol, ovol: OracleVolume) -> dict:
+    """Voxel-for-voxel agreement of a TSDFVolume with the oracle over
+    every oracle block: missing blocks, weight-mismatch rate, mean tsdf
+    and prob error on same-weight voxels, rate of rgb channels off by
+    more than one level, and both live-block counts."""
+    import jax.numpy as jnp
+
+    from disinfect_slam.ops import hash as h
+
+    coords = np.array(sorted(ovol.blocks.keys()), np.int32).reshape(-1, 3)
+    pool = np.asarray(h.lookup(vol, jnp.asarray(coords)))
+    found = pool >= 0
+    rows = pool[found]
+    ours_tsdf = np.asarray(vol.tsdf)[rows]  # [B, 512]
+    ours_w = np.asarray(vol.weight)[rows]
+    ours_rgb = np.asarray(vol.rgb)[rows]
+    ours_p = np.asarray(vol.prob)[rows]
+    kept = [tuple(c) for c in coords[found]]
+    o_tsdf = np.stack([ovol.blocks[c]["tsdf"] for c in kept]).reshape(ours_tsdf.shape)
+    o_w = np.stack([ovol.blocks[c]["weight"] for c in kept]).reshape(ours_w.shape)
+    o_rgb = np.stack([ovol.blocks[c]["rgb"] for c in kept]).reshape(ours_rgb.shape)
+    o_p = np.stack([ovol.blocks[c]["prob"] for c in kept]).reshape(ours_p.shape)
+    same_w = ours_w == o_w
+    return {
+        "missing": int((~found).sum()),
+        "w_mismatch": float((ours_w != o_w).mean()),
+        "tsdf_l1": float(np.abs(ours_tsdf - o_tsdf)[same_w].mean()),
+        "rgb_flip": float(
+            (np.abs(ours_rgb - o_rgb)[same_w].max(-1) > 1.0).mean()
+        ),
+        "prob_l1": float(np.abs(ours_p - o_p)[same_w].mean()),
+        "blocks": int(vol.num_active_blocks),
+        "oracle_blocks": len(coords),
+    }
 
 
 def oracle_raycast(vol: OracleVolume, K, img_h, img_w, cam_T_world, max_depth,

@@ -11,7 +11,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.systems.tsdf_grid import TSDFGrid
+from disinfect_slam.systems.tsdf_grid import TSDFGrid
 
 from .scenes import checker_rgb, look_at, render_sphere, render_wall
 from .test_integrate import CFG_DENSE_FILTER, H, K, MAX_DEPTH, W
@@ -38,7 +38,7 @@ def _active_records(vol):
     free pool blocks keep stale payloads until re-acquired (reference
     parity: release doesn't clear, voxel_mem_test.cu release semantics),
     so whole-pool comparison would see carve-churn garbage."""
-    from disinfect_slam_tpu.ops.gather import gather_valid
+    from disinfect_slam.ops.gather import gather_valid
 
     st = gather_valid(vol)
     n = int(st.count)

@@ -66,7 +66,7 @@ def test_tum_autodetect(tmp_path, monkeypatch):
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     import bench
-    from disinfect_slam_tpu.io.png_io import write_image
+    from disinfect_slam.io.png_io import write_image
 
     h, w = 480, 640
     rng = np.random.default_rng(3)

@@ -7,8 +7,8 @@ import logging
 
 import numpy as np
 
-from disinfect_slam_tpu.config import TSDFConfig
-from disinfect_slam_tpu.systems.tsdf_grid import TSDFGrid
+from disinfect_slam.config import TSDFConfig
+from disinfect_slam.systems.tsdf_grid import TSDFGrid
 
 from .scenes import checker_rgb, look_at, render_wall
 
@@ -141,7 +141,7 @@ def test_merge_rows_formulas():
     """_merge_rows mirrors the engine's weighted fusion: weights add
     (clamped), tsdf/rgb are weight-proportional, one-sided voxels pass
     through bit-exact."""
-    from disinfect_slam_tpu.systems.block_streaming import _merge_rows
+    from disinfect_slam.systems.block_streaming import _merge_rows
 
     def word(r, g, b, w):
         return np.uint32(r | (g << 8) | (b << 16) | (w << 24))
@@ -171,7 +171,7 @@ def test_merge_rows_formulas():
 
 
 def test_store_npz_roundtrip(tmp_path):
-    from disinfect_slam_tpu.systems.block_streaming import HostBlockStore
+    from disinfect_slam.systems.block_streaming import HostBlockStore
 
     grid = TSDFGrid(VOXEL, TRUNC, cfg=_cfg(), host_spill=True)
     _fuse_wall(grid)
@@ -192,7 +192,7 @@ def test_dense_slam_recenter_spills_and_restores():
     """DenseSLAM(host_spill=True): maybe_recenter routes departing
     blocks through the store and brings them back when the tracked
     camera returns."""
-    from disinfect_slam_tpu.systems.dense_slam import DenseSLAM
+    from disinfect_slam.systems.dense_slam import DenseSLAM
 
     cfg = _cfg(grid_log2=4)  # 16 blocks * 0.4 m: +-3.2 m window
     slam = DenseSLAM(
@@ -276,7 +276,7 @@ def test_pool_pressure_paging_unbounded_drive():
     assert restored > 0
     assert key not in paged.spill_store
     # the restored block's payload is bit-identical to what was evicted
-    from disinfect_slam_tpu.ops.hash import lookup
+    from disinfect_slam.ops.hash import lookup
     import jax.numpy as jnp
 
     row = int(np.asarray(lookup(
@@ -292,7 +292,7 @@ def test_store_spatial_records_match_device_dump():
     """spatial_records emits the same (x, y, z, tsdf) rows for spilled
     blocks as the device dump produced while they were live — so
     offline --save can append the host store and cover the whole map."""
-    from disinfect_slam_tpu.ops.gather import gather_valid, to_numpy_records
+    from disinfect_slam.ops.gather import gather_valid, to_numpy_records
 
     grid = TSDFGrid(VOXEL, TRUNC, cfg=_cfg(), host_spill=True)
     _fuse_wall(grid)

@@ -5,9 +5,9 @@ import time
 
 import numpy as np
 
-from disinfect_slam_tpu.ops.gather import BoundingCube
-from disinfect_slam_tpu.systems.bridge import ReconstructionBridge
-from disinfect_slam_tpu.systems.disinf_system import DISINFSystem
+from disinfect_slam.ops.gather import BoundingCube
+from disinfect_slam.systems.bridge import ReconstructionBridge
+from disinfect_slam.systems.disinf_system import DISINFSystem
 
 from .scenes import look_at, render_wall
 from .test_integrate import CFG_DENSE, H, K, W
@@ -80,7 +80,7 @@ def test_bridge_budget_warning(caplog):
             pose_period=0.5,
         )
         with caplog.at_level(
-            logging.WARNING, logger="disinfect_slam_tpu.systems.bridge"
+            logging.WARNING, logger="disinfect_slam.systems.bridge"
         ):
             with bridge:
                 deadline = time.time() + 60

@@ -5,10 +5,10 @@ import os
 import jax
 import numpy as np
 
-from disinfect_slam_tpu.core.geometry import SE3, CameraIntrinsics, CameraParams
-from disinfect_slam_tpu.core.state import TSDFVolume
-from disinfect_slam_tpu.io.checkpoint import load_volume, save_volume
-from disinfect_slam_tpu.ops.integrate import integrate
+from disinfect_slam.core.geometry import SE3, CameraIntrinsics, CameraParams
+from disinfect_slam.core.state import TSDFVolume
+from disinfect_slam.io.checkpoint import load_volume, save_volume
+from disinfect_slam.ops.integrate import integrate
 
 from .scenes import look_at, render_wall
 from .test_integrate import CFG_DENSE, H, K, MAX_DEPTH, W, make_frame

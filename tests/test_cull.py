@@ -6,9 +6,9 @@ import dataclasses
 import jax
 import numpy as np
 
-from disinfect_slam_tpu.core.geometry import SE3, CameraIntrinsics, CameraParams
-from disinfect_slam_tpu.core.state import TSDFVolume
-from disinfect_slam_tpu.ops.integrate import gather_visible, integrate
+from disinfect_slam.core.geometry import SE3, CameraIntrinsics, CameraParams
+from disinfect_slam.core.state import TSDFVolume
+from disinfect_slam.ops.integrate import gather_visible, integrate
 
 from .scenes import look_at, render_sphere, render_wall
 from .test_integrate import CFG_DENSE, H, K, MAX_DEPTH, W, make_frame
@@ -83,7 +83,7 @@ def test_cull_actually_culls():
     step = jax.jit(lambda v, f, p: integrate(v, f, cam, p, MAX_DEPTH))
     vol = step(vol, wall_only, se3)
 
-    from disinfect_slam_tpu.ops.integrate import depth_to_range
+    from disinfect_slam.ops.integrate import depth_to_range
 
     d2r = depth_to_range(cam)
     vis_all = gather_visible(vol, cam, se3)

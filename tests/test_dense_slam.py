@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from disinfect_slam_tpu.systems.dense_slam import DenseSLAM
+from disinfect_slam.systems.dense_slam import DenseSLAM
 
 from .scenes import checker_rgb, look_at, render_sphere, render_wall
 from .test_integrate import CFG_DENSE
@@ -61,7 +61,7 @@ def test_dense_slam_tracks_orbit():
 
     # absolute trajectory error through the evaluation tool: drift over
     # the ~22 cm sweep stays within a voxel after rigid alignment
-    from disinfect_slam_tpu.utils.trajectory_eval import ate
+    from disinfect_slam.utils.trajectory_eval import ate
 
     gt_wc = np.stack([np.linalg.inv(p) for p in true_poses])
     est_wc = np.stack([np.linalg.inv(np.asarray(p)) for p in est_poses])
@@ -118,27 +118,6 @@ def test_dense_slam_trans_prior_recovers_fast_translation():
     assert drift_n > 2 * drift, (drift_n, drift)
 
 
-def test_dense_slam_pallas_splat_matches_xla_tracking():
-    """Tracking with the Pallas model-depth render must behave identically
-    (the z-buffers are bit-identical, so poses agree exactly)."""
-    rgb = checker_rgb(W, H)
-    angs = np.linspace(0, 0.08, 4)
-    runs = {}
-    for impl in ("xla", "pallas"):
-        slam = DenseSLAM(K, H, W, voxel_size=0.02, truncation=0.06,
-                         cfg=SLAM_CFG, splat_impl=impl)
-        traj = []
-        for ang in angs:
-            eye = (np.sin(ang) * 1.8, 0.01 * ang, -1.8 * np.cos(ang) + 0.3)
-            est, _ok = slam.process_frame(rgb, scene_depth(look_at(eye, CENTER)))
-            traj.append(est.copy())
-        runs[impl] = np.stack(traj)
-    # the z-buffers are bit-identical (test_splat_kernel), but the two
-    # jitted programs fuse the depth-smoothing convolution differently,
-    # so poses agree only to f32 reassociation noise
-    np.testing.assert_allclose(runs["xla"], runs["pallas"], atol=1e-5)
-
-
 def test_dense_slam_single_dispatch_per_frame():
     """Dispatch audit (VERDICT r2 #8): the steady-state process_frame
     must be exactly ONE jitted call (_track_fuse) with no separate
@@ -179,7 +158,7 @@ def test_initial_pose_anchor():
     must be fused at inv(world_T_cam0) and tracking continues from it."""
     from scipy.spatial.transform import Rotation
 
-    from disinfect_slam_tpu.systems.imu import ImuPreintegrator
+    from disinfect_slam.systems.imu import ImuPreintegrator
 
     # simulate a camera pitched 25 deg down at start: gravity alignment
     # recovers a level world frame from the accel window

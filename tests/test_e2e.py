@@ -5,16 +5,16 @@ pseudo_online_capture + offline pair (SURVEY.md §4)."""
 
 import numpy as np
 
-from disinfect_slam_tpu.io.checkpoint import load_volume, save_volume
-from disinfect_slam_tpu.io.dataset import LoggedReplay
-from disinfect_slam_tpu.io.logger import FrameLogger
-from disinfect_slam_tpu.ops.gather import (
+from disinfect_slam.io.checkpoint import load_volume, save_volume
+from disinfect_slam.io.dataset import LoggedReplay
+from disinfect_slam.io.logger import FrameLogger
+from disinfect_slam.ops.gather import (
     BoundingCube,
     dump_spatial_tsdf,
     load_spatial_tsdf,
 )
-from disinfect_slam_tpu.ops.mesh import extract_mesh_chunked, merge_vertices
-from disinfect_slam_tpu.systems.tsdf_grid import TSDFGrid
+from disinfect_slam.ops.mesh import extract_mesh_chunked, merge_vertices
+from disinfect_slam.systems.tsdf_grid import TSDFGrid
 
 from .scenes import checker_rgb, look_at, render_sphere, render_wall
 from .test_integrate import CFG_DENSE, H, K, W

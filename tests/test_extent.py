@@ -15,8 +15,8 @@ import logging
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.config import TINY, TSDFConfig
-from disinfect_slam_tpu.systems.tsdf_grid import TSDFGrid
+from disinfect_slam.config import TINY, TSDFConfig
+from disinfect_slam.systems.tsdf_grid import TSDFGrid
 from .scenes import checker_rgb, look_at, render_wall
 
 W, H = 80, 60
@@ -74,7 +74,7 @@ def test_centered_grid_truncates_and_warns(caplog):
     )
     grid = TSDFGrid(VOXEL, TRUNC, cfg=cfg)
     frames = _corridor_frames(20, spacing=0.5)
-    with caplog.at_level(logging.WARNING, "disinfect_slam_tpu.tsdf_grid"):
+    with caplog.at_level(logging.WARNING, "disinfect_slam.tsdf_grid"):
         _drive(grid, frames)
         # watchdog polls every 30 frames; push past the next tick
         for _ in range(12):
@@ -110,7 +110,7 @@ def test_hash_backend_maps_beyond_any_grid():
 
 
 def test_checkpoint_roundtrip_with_origin(tmp_path):
-    from disinfect_slam_tpu.io.checkpoint import load_volume, save_volume
+    from disinfect_slam.io.checkpoint import load_volume, save_volume
 
     cfg = TSDFConfig(
         voxel_size=VOXEL, truncation=TRUNC,
@@ -166,7 +166,7 @@ def test_recenter_preserves_kept_blocks_and_releases_dropped():
 
     import jax.numpy as jnp
 
-    from disinfect_slam_tpu.ops.hash import lookup, recenter_dense
+    from disinfect_slam.ops.hash import lookup, recenter_dense
 
     cfg = TSDFConfig(
         voxel_size=VOXEL, truncation=TRUNC,
@@ -202,7 +202,7 @@ def test_recenter_preserves_kept_blocks_and_releases_dropped():
 
     # gather through the moved window: every still-covered voxel
     # identical to before
-    from disinfect_slam_tpu.ops import gather as gather_ops
+    from disinfect_slam.ops import gather as gather_ops
 
     st1 = gather_ops.gather_valid(vol1)
     rec1 = {
@@ -232,7 +232,7 @@ def test_disinf_system_auto_recenter_corridor():
     """The facade path (DISINFSystem -> async TSDFSystem -> TSDFGrid)
     follows the robot with auto_recenter=True: the corridor that
     truncates at the centered window's +6.4 m maps to its far end."""
-    from disinfect_slam_tpu.systems.disinf_system import DISINFSystem
+    from disinfect_slam.systems.disinf_system import DISINFSystem
 
     cfg = TSDFConfig(
         voxel_size=VOXEL, truncation=TRUNC,
@@ -259,7 +259,7 @@ def test_dense_slam_maybe_recenter():
     import dataclasses as dc
 
     from .scenes import checker_rgb as _rgb
-    from disinfect_slam_tpu.systems.dense_slam import DenseSLAM
+    from disinfect_slam.systems.dense_slam import DenseSLAM
 
     cfg = TSDFConfig(
         voxel_size=VOXEL, truncation=TRUNC,

@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.ops.gather import (
+from disinfect_slam.ops.gather import (
     BoundingCube,
     dump_spatial_tsdf,
     gather_valid,
@@ -73,7 +73,7 @@ def test_surface_band_has_small_tsdf(fused):
 def test_volume_from_records_roundtrip(fused):
     """Rebuilding a volume from dump records reproduces the records
     exactly (the TSDF2Mesh-role consumer, apps/tsdf2mesh.py)."""
-    from disinfect_slam_tpu.ops.gather import (
+    from disinfect_slam.ops.gather import (
         infer_voxel_size,
         volume_from_spatial_records,
     )
@@ -93,8 +93,8 @@ def test_volume_from_records_roundtrip(fused):
 
 def test_mesh_from_dump_records(fused):
     """Meshing the rebuilt volume puts vertices on the dumped surface."""
-    from disinfect_slam_tpu.ops.gather import volume_from_spatial_records
-    from disinfect_slam_tpu.ops.mesh import extract_mesh_chunked
+    from disinfect_slam.ops.gather import volume_from_spatial_records
+    from disinfect_slam.ops.mesh import extract_mesh_chunked
 
     rec = to_numpy_records(gather_valid(fused))
     vol2 = volume_from_spatial_records(rec)

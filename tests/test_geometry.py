@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from disinfect_slam_tpu.core.geometry import SE3, CameraIntrinsics, CameraParams
+from disinfect_slam.core.geometry import SE3, CameraIntrinsics, CameraParams
 
 
 def random_se3(rng):

@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from disinfect_slam_tpu.config import TINY, TSDFConfig
-from disinfect_slam_tpu.core.state import (
+from disinfect_slam.config import TINY, TSDFConfig
+from disinfect_slam.core.state import (
     DEFAULT_PROB,
     DEFAULT_TSDF,
     EMPTY,
@@ -19,7 +19,7 @@ from disinfect_slam_tpu.core.state import (
     RESET_TSDF,
     TSDFVolume,
 )
-from disinfect_slam_tpu.ops import hash as h
+from disinfect_slam.ops import hash as h
 
 
 def mk(cfg=TINY):
@@ -145,8 +145,8 @@ def test_over_cap_insert_still_resets_every_block():
     log-odds fusion turns into NaN on first touch."""
     import pytest
 
-    from disinfect_slam_tpu.config import TINY_DENSE
-    from disinfect_slam_tpu.utils.validate import validate_volume
+    from disinfect_slam.config import TINY_DENSE
+    from disinfect_slam.utils.validate import validate_volume
 
     for cfg in (TINY, TINY_DENSE):
         n = cfg.max_new_per_round + 100  # > reset capacity, < pool size? no:

@@ -7,9 +7,9 @@ both index backends over many randomized rounds.
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.config import TINY, TINY_DENSE
-from disinfect_slam_tpu.core.state import TSDFVolume
-from disinfect_slam_tpu.ops import hash as h
+from disinfect_slam.config import TINY, TINY_DENSE
+from disinfect_slam.core.state import TSDFVolume
+from disinfect_slam.ops import hash as h
 
 import jax.numpy as jnp
 

@@ -3,7 +3,7 @@
 import numpy as np
 from scipy.spatial.transform import Rotation
 
-from disinfect_slam_tpu.systems.imu import (
+from disinfect_slam.systems.imu import (
     GyroPreintegrator,
     seed_pose_with_gyro,
 )
@@ -43,7 +43,7 @@ def test_seed_pose():
 
 
 def test_inertial_preintegration_constant_accel():
-    from disinfect_slam_tpu.systems.imu import ImuPreintegrator
+    from disinfect_slam.systems.imu import ImuPreintegrator
 
     # camera aligned with a gravity-aligned world, at rest, then a
     # constant specific force of 0.8 m/s^2 along camera x for 1 s:
@@ -59,7 +59,7 @@ def test_inertial_preintegration_constant_accel():
 
 
 def test_inertial_preintegration_stationary_rotating():
-    from disinfect_slam_tpu.systems.imu import ImuPreintegrator
+    from disinfect_slam.systems.imu import ImuPreintegrator
 
     # camera spinning in place about the world up axis: the measured
     # specific force is gravity rotated into the moving camera frame;
@@ -77,7 +77,7 @@ def test_inertial_preintegration_stationary_rotating():
 
 
 def test_inertial_preintegration_tilted_camera():
-    from disinfect_slam_tpu.systems.imu import ImuPreintegrator
+    from disinfect_slam.systems.imu import ImuPreintegrator
 
     # camera pitched down 30 degrees, static: with the correct attitude
     # supplied, gravity cancels exactly and nothing moves
@@ -93,7 +93,7 @@ def test_inertial_preintegration_tilted_camera():
 
 
 def test_seed_pose_with_imu_and_accel_bias():
-    from disinfect_slam_tpu.systems.imu import (
+    from disinfect_slam.systems.imu import (
         ImuPreintegrator,
         seed_pose_with_imu,
     )
@@ -142,7 +142,7 @@ def test_seed_pose_with_imu_and_accel_bias():
 def test_mesh_ply_with_attributes(tmp_path):
     import os
 
-    from disinfect_slam_tpu.ops.mesh import (
+    from disinfect_slam.ops.mesh import (
         compact_mesh,
         extract_mesh,
         merge_vertices,
@@ -178,7 +178,7 @@ def test_mesh_ply_with_attributes(tmp_path):
 
 
 def test_gravity_alignment_recovers_tilt():
-    from disinfect_slam_tpu.systems.imu import ImuPreintegrator
+    from disinfect_slam.systems.imu import ImuPreintegrator
 
     # camera tilted: rotate the world up vector into the camera frame
     # by a known attitude (roll 20 deg, pitch -35 deg)
@@ -204,7 +204,7 @@ def test_gravity_alignment_recovers_tilt():
 
 
 def test_gravity_alignment_fail_open():
-    from disinfect_slam_tpu.systems.imu import ImuPreintegrator
+    from disinfect_slam.systems.imu import ImuPreintegrator
 
     pre = ImuPreintegrator()
     # no samples -> identity
@@ -228,7 +228,7 @@ def test_relative_rotation_noncommuting_order():
     """Body rates compose on the right: a 90-deg x-spin followed by a
     90-deg y-spin must integrate to exp(X) @ exp(Y) (chronological),
     not the reversed chain — and must agree with relative_motion."""
-    from disinfect_slam_tpu.systems.imu import ImuPreintegrator
+    from disinfect_slam.systems.imu import ImuPreintegrator
 
     w = np.pi / 2  # rad/s, 1 s each phase
     pre = ImuPreintegrator()

@@ -8,13 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.config import TSDFConfig
-from disinfect_slam_tpu.core.geometry import SE3, CameraIntrinsics, CameraParams
-from disinfect_slam_tpu.core.state import TSDFVolume
-from disinfect_slam_tpu.ops import hash as h
-from disinfect_slam_tpu.ops.integrate import FrameInput, integrate
+from disinfect_slam.config import TSDFConfig
+from disinfect_slam.core.geometry import SE3, CameraIntrinsics, CameraParams
+from disinfect_slam.core.state import TSDFVolume
+from disinfect_slam.ops.integrate import FrameInput, integrate
 
-from .oracle import OracleVolume
+from .oracle import OracleVolume, volume_metrics
 from .scenes import checker_rgb, look_at, render_sphere, render_wall
 
 # Small but non-trivial test configurations (both index backends).
@@ -97,37 +96,18 @@ def run_oracle(frames_poses, cfg=CFG):
 
 
 def compare(vol, ovol, tsdf_atol=2e-3):
-    """Compare every voxel of every oracle block against the TPU volume."""
-    coords = np.array(sorted(ovol.blocks.keys()), np.int32)
-    pool = np.asarray(h.lookup(vol, jnp.asarray(coords)))
-    missing = (pool < 0).sum()
-    assert missing == 0, f"{missing}/{len(coords)} oracle blocks missing"
-
-    ours_tsdf = np.asarray(vol.tsdf)[pool]  # [B, 512]
-    ours_w = np.asarray(vol.weight)[pool]
-    ours_rgb = np.asarray(vol.rgb)[pool]
-    ours_p = np.asarray(vol.prob)[pool]
-    o_tsdf = np.stack([ovol.blocks[tuple(c)]["tsdf"] for c in coords])
-    o_w = np.stack([ovol.blocks[tuple(c)]["weight"] for c in coords])
-    o_rgb = np.stack([ovol.blocks[tuple(c)]["rgb"] for c in coords])
-    o_p = np.stack([ovol.blocks[tuple(c)]["prob"] for c in coords])
-
+    """Compare every voxel of every oracle block against the volume."""
+    m = volume_metrics(vol, ovol)
+    assert m["missing"] == 0, f"{m['missing']}/{m['oracle_blocks']} oracle blocks missing"
     # weights are integral -> must match exactly almost everywhere; a tiny
     # fraction of voxels may sample a different pixel when the projection
     # sits at an f32-vs-f64 rounding boundary
-    w_mismatch = (ours_w != o_w).mean()
-    assert w_mismatch < 0.005, f"weight mismatch rate {w_mismatch}"
-    same_w = ours_w == o_w
-    tsdf_l1 = np.abs(ours_tsdf - o_tsdf)[same_w].mean()
-    assert tsdf_l1 < tsdf_atol, f"tsdf L1 {tsdf_l1}"
-    rgb_flip = (np.abs(ours_rgb - o_rgb)[same_w].max(-1) > 1.0).mean()
-    assert rgb_flip < 0.005, f"rgb mismatch rate {rgb_flip}"
-    p_l1 = np.abs(ours_p - o_p)[same_w].mean()
-    assert p_l1 < 1e-3, f"prob L1 {p_l1}"
-
+    assert m["w_mismatch"] < 0.005, f"weight mismatch rate {m['w_mismatch']}"
+    assert m["tsdf_l1"] < tsdf_atol, f"tsdf L1 {m['tsdf_l1']}"
+    assert m["rgb_flip"] < 0.005, f"rgb mismatch rate {m['rgb_flip']}"
+    assert m["prob_l1"] < 1e-3, f"prob L1 {m['prob_l1']}"
     # no extra live blocks beyond the oracle's
-    n_ours = int(vol.num_active_blocks)
-    assert n_ours == len(coords), (n_ours, len(coords))
+    assert m["blocks"] == m["oracle_blocks"], (m["blocks"], m["oracle_blocks"])
 
 
 @BOTH
@@ -224,7 +204,7 @@ def test_alloc_tile_compaction_matches_sort_path():
     voxel-for-voxel (up to pool ordering)."""
     import dataclasses
 
-    from disinfect_slam_tpu.ops.gather import gather_valid
+    from disinfect_slam.ops.gather import gather_valid
 
     w2, h2 = 304, 224  # 304*224*2 DDA steps = 136192 keys >= 2^17
     k2 = (250.0, 250.0, 151.5, 111.5)
@@ -273,14 +253,14 @@ def test_alloc_tile_compaction_matches_sort_path():
 def test_visible_pool_indices_sorted_unique_invariant(cfg):
     """The fuse/splat/export gathers promise indices_are_sorted (dense)
     and the payload scatters promise unique_indices to XLA — wrong
-    results on TPU if the compaction ever stops delivering ascending
+    results on the GPU if the compaction ever stops delivering ascending
     (dense) / collision-free pool rows.  Pin the precondition here.
 
     Dense backend: entry i <-> pool slot i and compact_mask preserves
     entry order, so live pool_idx must be strictly increasing.  Both
     backends: live pool_idx must be duplicate-free."""
-    from disinfect_slam_tpu.ops.integrate import gather_visible
-    from disinfect_slam_tpu.ops.render_fast import _surf_visible
+    from disinfect_slam.ops.integrate import gather_visible
+    from disinfect_slam.ops.render_fast import _surf_visible
 
     pose_np = look_at((0.013, -0.027, -1.5), (0.013, -0.021, 1.007))
     depth = render_sphere(
@@ -318,8 +298,8 @@ def test_scatter_window_placement_exact():
     to zero) by test_scatter_window_matches_plain below."""
     import jax
 
-    from disinfect_slam_tpu.core.state import TSDFVolume
-    from disinfect_slam_tpu.ops.integrate import (
+    from disinfect_slam.core.state import TSDFVolume
+    from disinfect_slam.ops.integrate import (
         VisibleSet,
         _scatter_payload_rows,
     )
@@ -375,7 +355,7 @@ def test_scatter_window_matches_plain():
     optimization_barrier.  Placement exactness (the part the window
     machinery is responsible for) is pinned bit-exactly by
     test_scatter_window_placement_exact."""
-    from disinfect_slam_tpu.ops.gather import gather_valid
+    from disinfect_slam.ops.gather import gather_valid
 
     pose_a = look_at((0.013, -0.027, -1.5), (0.013, -0.021, 1.007))
     pose_b = look_at((0.35, 0.11, -1.4), (0.013, -0.021, 1.007))
@@ -402,8 +382,8 @@ def test_scatter_window_matches_plain():
     assert plain.shape[0] > 64, "degenerate scene"
     # 9: windowed branch taken (2^9 = 512 rows covers every live row of
     # the 2^10 pool); 4: in-program fallback (16-row window cannot
-    # cover the live span); -1: auto, resolves to off on CPU
-    for wlog2 in (9, 4, -1):
+    # cover the live span)
+    for wlog2 in (9, 4):
         rows = volume_rows(wlog2)
         assert rows.shape == plain.shape
         np.testing.assert_array_equal(plain[:, :3], rows[:, :3])  # position
@@ -413,23 +393,36 @@ def test_scatter_window_matches_plain():
 
 
 def test_auto_scatter_window_resolution():
-    """scatter_window_log2 = -1 resolves like sampler='auto': the
-    measured win region only (TPU dense backend at >= 2^18 blocks ->
-    num_blocks_log2 - 3), explicit values pass through everywhere."""
-    from disinfect_slam_tpu.ops.integrate import _auto_scatter_window
+    """The plain full-pool scatter is the default on every platform
+    (there is no trace-time "auto" rule); an explicit window passes
+    through to the scatter program, and negative values are rejected."""
+    from disinfect_slam.ops.integrate import VisibleSet, _scatter_payload_rows
 
-    big = dataclasses.replace(CFG_DENSE, num_blocks_log2=18,
-                              scatter_window_log2=-1)
-    assert _auto_scatter_window(big, on_tpu=True) == 15
-    assert _auto_scatter_window(big, on_tpu=False) == 0
-    small = dataclasses.replace(big, num_blocks_log2=17)
-    assert _auto_scatter_window(small, on_tpu=True) == 0
-    hashed = dataclasses.replace(big, backend="hash", grid_log2=0)
-    assert _auto_scatter_window(hashed, on_tpu=True) == 0
-    explicit = dataclasses.replace(big, scatter_window_log2=12)
-    assert _auto_scatter_window(explicit, on_tpu=False) == 12
-    off = dataclasses.replace(big, scatter_window_log2=0)
-    assert _auto_scatter_window(off, on_tpu=True) == 0
+    assert TSDFConfig().scatter_window_log2 == 0
+    big = dataclasses.replace(CFG_DENSE, num_blocks_log2=18)
+    assert big.scatter_window_log2 == 0
+    with pytest.raises(AssertionError):
+        dataclasses.replace(big, scatter_window_log2=-1).validate()
+
+    def window_slices(wlog2):
+        cfg = dataclasses.replace(CFG_DENSE, scatter_window_log2=wlog2)
+        vcap, bv = cfg.max_visible, cfg.block_volume
+        vol = jax.eval_shape(lambda: TSDFVolume.create(cfg))
+        vis = VisibleSet(
+            entry_idx=jnp.zeros((vcap,), jnp.int32),
+            block_pos=jnp.zeros((vcap, 3), jnp.int32),
+            pool_idx=jnp.zeros((vcap,), jnp.int32),
+            mask=jnp.zeros((vcap,), bool),
+            count=jnp.int32(0),
+        )
+        rows = jnp.zeros((vcap, bv), jnp.float32)
+        text = str(jax.make_jaxpr(_scatter_payload_rows)(
+            vol, vis, rows, rows.astype(jnp.uint32), rows
+        ))
+        return text.count(f"slice_sizes=({1 << wlog2}, {bv})")
+
+    assert window_slices(0) == 0
+    assert window_slices(9) == 3  # tsdf, rgbw, prob each sliced to 2^9 rows
 
 
 def test_fuse_ladder_matches_monolithic():
@@ -439,7 +432,7 @@ def test_fuse_ladder_matches_monolithic():
     class as test_scatter_window_matches_plain: discrete columns
     bit-exact, tsdf/prob within the few-ulp cross-program-shape bound
     (the fuse math compiles per branch shape on XLA:CPU)."""
-    from disinfect_slam_tpu.ops.gather import gather_valid
+    from disinfect_slam.ops.gather import gather_valid
 
     pose_a = look_at((0.013, -0.027, -1.5), (0.013, -0.021, 1.007))
     pose_b = look_at((0.35, 0.11, -1.4), (0.013, -0.021, 1.007))
@@ -464,7 +457,7 @@ def test_fuse_ladder_matches_monolithic():
 
     plain = volume_rows(1)
     assert plain.shape[0] > 64, "degenerate scene"
-    # 4: the TPU auto value; 8: finer ladder exercises a non-boundary
+    # 4: a coarse ladder; 8: finer ladder exercises a non-boundary
     # branch; also the hash backend (no sorted-prefix hints needed —
     # the ladder only relies on mask == arange < count)
     for ladder in (4, 8):

@@ -1,16 +1,20 @@
 """I/O tests: logger->replay roundtrip, config reading, rectification."""
 
+import glob
+import os
+
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.io.config_reader import (
+from disinfect_slam.io.config_reader import (
     get_depth_factor,
     get_extrinsics,
     get_intrinsics,
+    parse_yaml,
 )
-from disinfect_slam_tpu.io.dataset import LoggedReplay
-from disinfect_slam_tpu.io.logger import FrameLogger
-from disinfect_slam_tpu.io.png_io import read_image, write_image
+from disinfect_slam.io.dataset import LoggedReplay
+from disinfect_slam.io.logger import FrameLogger
+from disinfect_slam.io.png_io import read_image, write_image
 
 
 def test_png_16bit_roundtrip(tmp_path):
@@ -64,11 +68,30 @@ def test_config_reader(tmp_path):
     np.testing.assert_array_equal(get_extrinsics({}), np.eye(4))
 
 
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_YAMLS = sorted(glob.glob(os.path.join(_REPO, "configs", "*.yaml"))) + [
+    os.path.join(_REPO, "datasets", "orbit_vga", "cam.yaml")
+]
+
+
+@pytest.mark.parametrize("path", _YAMLS, ids=os.path.basename)
+def test_yaml_subset_parser_matches_pyyaml(path):
+    """The stdlib parser reads every shipped config exactly as PyYAML's
+    safe_load does (keys, value types and values)."""
+    yaml = pytest.importorskip("yaml")
+    with open(path) as f:
+        text = f.read()
+    ref = yaml.safe_load(text)
+    ours = parse_yaml(text)
+    assert ours == ref
+    assert {k: type(v) for k, v in ours.items()} == {k: type(v) for k, v in ref.items()}
+
+
 class TestRectification:
     def test_identity_remap(self):
         import jax.numpy as jnp
 
-        from disinfect_slam_tpu.ops.image_ops import bilinear_remap
+        from disinfect_slam.ops.image_ops import bilinear_remap
 
         img = np.random.default_rng(2).uniform(0, 255, (16, 20)).astype(np.float32)
         yy, xx = np.mgrid[0:16, 0:20].astype(np.float32)
@@ -78,7 +101,7 @@ class TestRectification:
     def test_halfpixel_shift_interpolates(self):
         import jax.numpy as jnp
 
-        from disinfect_slam_tpu.ops.image_ops import bilinear_remap
+        from disinfect_slam.ops.image_ops import bilinear_remap
 
         img = np.arange(16, dtype=np.float32).reshape(4, 4)
         yy, xx = np.mgrid[0:4, 0:4].astype(np.float32)
@@ -90,7 +113,7 @@ class TestRectification:
     def test_rectify_maps_vs_opencv(self):
         cv2 = pytest.importorskip("cv2")
 
-        from disinfect_slam_tpu.ops.image_ops import StereoRectifier, build_rectify_maps
+        from disinfect_slam.ops.image_ops import StereoRectifier, build_rectify_maps
 
         K_l = np.array([[458.0, 0, 320.0], [0, 457.0, 240.0], [0, 0, 1]])
         K_r = np.array([[459.0, 0, 321.0], [0, 458.0, 241.0], [0, 0, 1]])
@@ -123,7 +146,7 @@ def test_zed_factory_conf_parsing(tmp_path):
     """ZED factory .conf -> K/D/R/T with the reference's quirks
     (utils/zed/calib.py:43-98): baseline negated mm->m, CV_ key is the
     pitch, missing keys read 0."""
-    from disinfect_slam_tpu.io.zed_calib import (
+    from disinfect_slam.io.zed_calib import (
         parse_factory_conf,
         rectifier_from_factory_conf,
     )
@@ -164,7 +187,7 @@ def test_zed_factory_conf_parsing(tmp_path):
 
 
 def test_prefetch_replay_order_len_and_errors():
-    from disinfect_slam_tpu.io.dataset import PrefetchReplay
+    from disinfect_slam.io.dataset import PrefetchReplay
 
     class FakeReplay:
         def __init__(self, n, fail_at=None):

@@ -2,7 +2,7 @@
 
 The reference inherits loop closing from ORB_SLAM3/OpenVSLAM
 (disinfect_slam.cc:89, modules/slam_module.cc:100-120); these tests
-cover the built-in tracker's TPU-native replacement
+cover the built-in tracker's JAX replacement
 (systems/loop_closure.py): SE3 log/exp, the depth descriptor + matmul
 matcher, pose-graph relaxation, the full drift-correction pipeline on a
 synthetic out-and-back trajectory, relocalization, and the
@@ -13,7 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from disinfect_slam_tpu.systems.loop_closure import (
+from disinfect_slam.systems.loop_closure import (
     LoopClosureManager,
     _exp_se3_mat,
     _inv_rigid,
@@ -276,7 +276,7 @@ def test_dense_slam_loop_closure_wiring():
     trajectory-correction passthrough works."""
     import dataclasses
 
-    from disinfect_slam_tpu.systems.dense_slam import DenseSLAM
+    from disinfect_slam.systems.dense_slam import DenseSLAM
 
     from .test_integrate import CFG_DENSE
 

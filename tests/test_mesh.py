@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.ops.mesh import (
+from disinfect_slam.ops.mesh import (
     compact_mesh,
     extract_mesh,
     merge_vertices,
@@ -78,7 +78,7 @@ def test_merge_vertices_and_obj(tmp_path, sphere_vol):
 
 
 def test_chunked_extraction_matches_single_shot(sphere_vol):
-    from disinfect_slam_tpu.ops.mesh import extract_mesh_chunked
+    from disinfect_slam.ops.mesh import extract_mesh_chunked
 
     tris_single = compact_mesh(extract_mesh(sphere_vol, max_tris=1 << 17))
     tris_chunked = extract_mesh_chunked(sphere_vol, chunk=16)
@@ -96,7 +96,7 @@ def test_chunked_clip_warning_fires(sphere_vol, caplog):
     a silent 79% drop at bench scale — never again)."""
     import logging
 
-    from disinfect_slam_tpu.ops.mesh import extract_mesh_chunked
+    from disinfect_slam.ops.mesh import extract_mesh_chunked
 
     with caplog.at_level(logging.WARNING):
         tris_small = extract_mesh_chunked(
@@ -109,7 +109,7 @@ def test_chunked_clip_warning_fires(sphere_vol, caplog):
 def test_chunked_q16_transfer_matches_f32(sphere_vol):
     """The uint16 fixed-point D2H mode must reproduce the f32 mesh to
     within its documented half-step (voxel/32) and keep every triangle."""
-    from disinfect_slam_tpu.ops.mesh import extract_mesh_chunked
+    from disinfect_slam.ops.mesh import extract_mesh_chunked
 
     tris_f32 = extract_mesh_chunked(sphere_vol, chunk=16)
     tris_q16 = extract_mesh_chunked(sphere_vol, chunk=16, transfer="q16")

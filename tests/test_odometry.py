@@ -3,7 +3,7 @@ depth frames."""
 
 import numpy as np
 
-from disinfect_slam_tpu.systems.odometry import ICPOdometry
+from disinfect_slam.systems.odometry import ICPOdometry
 
 from .scenes import look_at, render_sphere, render_wall
 

@@ -10,7 +10,7 @@ import dataclasses
 
 import numpy as np
 
-from disinfect_slam_tpu.systems.online_step import FusedOnlineStep
+from disinfect_slam.systems.online_step import FusedOnlineStep
 
 from .scenes import checker_rgb, look_at, render_sphere, render_wall
 from .test_integrate import CFG_DENSE_FILTER, H, K, MAX_DEPTH, W

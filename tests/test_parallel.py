@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from disinfect_slam_tpu.core.geometry import SE3, CameraIntrinsics, CameraParams
-from disinfect_slam_tpu.core.state import TSDFVolume
-from disinfect_slam_tpu.ops import hash as h
-from disinfect_slam_tpu.ops.integrate import FrameInput, integrate
-from disinfect_slam_tpu.parallel.sharding import (
+from disinfect_slam.core.geometry import SE3, CameraIntrinsics, CameraParams
+from disinfect_slam.core.state import TSDFVolume
+from disinfect_slam.ops import hash as h
+from disinfect_slam.ops.integrate import FrameInput, integrate
+from disinfect_slam.parallel.sharding import (
     DistributedTSDF,
     make_mesh,
     owner_of,
@@ -50,7 +50,7 @@ def test_sharded_integrate_matches_single_chip():
 
     # voxel-level equality: export both and compare sorted records
     rec_d = dist.gather_all_tsdf()
-    from disinfect_slam_tpu.ops.gather import gather_valid, to_numpy_records
+    from disinfect_slam.ops.gather import gather_valid, to_numpy_records
 
     rec_s = to_numpy_records(gather_valid(vol))
     assert rec_d.shape == rec_s.shape
@@ -83,9 +83,9 @@ def test_sharded_multi_frame_with_carving():
 def test_seg_sharded_train_step():
     import optax
 
-    from disinfect_slam_tpu.models.segmentation import create_model
-    from disinfect_slam_tpu.models.train import TrainState
-    from disinfect_slam_tpu.parallel.seg_parallel import (
+    from disinfect_slam.models.segmentation import create_model
+    from disinfect_slam.models.train import TrainState
+    from disinfect_slam.parallel.seg_parallel import (
         make_mesh_2d,
         make_sharded_infer,
         make_sharded_train_step,
@@ -145,12 +145,12 @@ def test_distributed_query_and_render():
     """Collective bbox query + min-combined splat render across shards."""
     from .test_integrate import CFG_DENSE
 
-    from disinfect_slam_tpu.ops.gather import (
+    from disinfect_slam.ops.gather import (
         BoundingCube,
         gather_voxels,
         to_numpy_records,
     )
-    from disinfect_slam_tpu.ops.render_fast import splat_render
+    from disinfect_slam.ops.render_fast import splat_render
 
     mesh = make_mesh(4)
     dist = DistributedTSDF(CFG_DENSE, mesh)
@@ -198,7 +198,7 @@ def test_elastic_checkpoint_resharding(tmp_path):
     distributed backend."""
     import os
 
-    from disinfect_slam_tpu.parallel.sharding import (
+    from disinfect_slam.parallel.sharding import (
         load_distributed,
         save_distributed,
     )

@@ -4,10 +4,10 @@ geometry, shading and semantic overlay against analytic expectations."""
 import jax
 import numpy as np
 
-from disinfect_slam_tpu.core.geometry import SE3, CameraIntrinsics, CameraParams
-from disinfect_slam_tpu.core.state import TSDFVolume
-from disinfect_slam_tpu.ops.integrate import integrate
-from disinfect_slam_tpu.ops.raycast import raycast
+from disinfect_slam.core.geometry import SE3, CameraIntrinsics, CameraParams
+from disinfect_slam.core.state import TSDFVolume
+from disinfect_slam.ops.integrate import integrate
+from disinfect_slam.ops.raycast import raycast
 
 from .scenes import look_at, render_sphere, render_wall
 from .test_integrate import CFG, H, K, MAX_DEPTH, W, make_frame

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from disinfect_slam_tpu.core.geometry import SE3, CameraIntrinsics, CameraParams
-from disinfect_slam_tpu.ops.raycast import raycast
+from disinfect_slam.core.geometry import SE3, CameraIntrinsics, CameraParams
+from disinfect_slam.ops.raycast import raycast
 
 from .oracle import oracle_raycast
 from .scenes import look_at, render_sphere

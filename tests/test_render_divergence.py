@@ -22,8 +22,8 @@ Measured on the sphere+wall golden scene (this file, CPU backend):
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.config import TSDFConfig
-from disinfect_slam_tpu.systems.tsdf_grid import TSDFGrid
+from disinfect_slam.config import TSDFConfig
+from disinfect_slam.systems.tsdf_grid import TSDFGrid
 
 from .scenes import checker_rgb, look_at, render_sphere, render_wall
 

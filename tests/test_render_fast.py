@@ -2,12 +2,14 @@
 coverage, depth, and semantic overlay."""
 
 import numpy as np
+import pytest
 
-from disinfect_slam_tpu.core.geometry import SE3
-from disinfect_slam_tpu.ops.raycast import raycast
-from disinfect_slam_tpu.ops.render_fast import splat_render
+from disinfect_slam.core.geometry import SE3, CameraIntrinsics, CameraParams
+from disinfect_slam.core.state import TSDFVolume
+from disinfect_slam.ops.raycast import raycast
+from disinfect_slam.ops.render_fast import splat_render
 
-from .scenes import look_at, render_wall
+from .scenes import look_at, render_sphere, render_wall
 from .test_integrate import CFG_DENSE, H, K, MAX_DEPTH, W, make_frame
 from .test_raycast import fuse_frames
 
@@ -64,3 +66,36 @@ def test_splat_normals_bright_facing():
     sel = hit[8:-8, 8:-8]
     lum = normal[8:-8, 8:-8, 0][sel]
     assert np.median(lum) > 150
+
+
+def _sphere_scene(eye):
+    pose_np = look_at(eye, (0.05, 0.08, 1.4))
+    depth = render_sphere(W, H, K, pose_np, center=(0.05, 0.08, 1.4), radius=0.37)
+    depth = np.where(depth > 0, depth, render_wall(W, H, K, pose_np, wall_z=2.6))
+    vol, cam = fuse_frames([(make_frame(depth.astype(np.float32)), pose_np)] * 2,
+                           cfg=CFG_DENSE)
+    return vol, cam, pose_np
+
+
+@pytest.mark.parametrize("eye", [(0.21, -0.33, -0.27), (0.05, 0.1, 0.55)],
+                         ids=["normal", "close"])
+def test_surf_cap_filter_is_lossless_when_cap_holds(eye):
+    """The surface-band prefilter must not change the rendered images
+    while the cap covers every surface block (min/max merges are
+    order-independent).  `close` puts the camera ~0.5 m from the sphere
+    so block footprints are large."""
+    vol, cam, pose_np = _sphere_scene(eye)
+    pose = SE3.from_matrix(pose_np)
+    a = splat_render(vol, cam, pose, MAX_DEPTH, surf_cap=None)
+    b = splat_render(vol, cam, pose, MAX_DEPTH)  # default cap
+    assert np.asarray(b.hit).mean() > 0.05
+    for f in ("rgba", "depth", "hit", "normal"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)), np.asarray(getattr(b, f)))
+
+
+def test_splat_empty_volume():
+    vol = TSDFVolume.create(CFG_DENSE)
+    cam = CameraParams.create(CameraIntrinsics.create(*K), H, W)
+    res = splat_render(vol, cam, SE3.identity(), MAX_DEPTH)
+    assert not bool(np.asarray(res.hit).any())
+    assert float(np.asarray(res.depth).sum()) == 0.0

@@ -19,7 +19,7 @@ import sys
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.io.dataset import LoggedReplay
+from disinfect_slam.io.dataset import LoggedReplay
 
 sys.path.insert(0, os.path.dirname(__file__))
 
@@ -75,9 +75,9 @@ def test_replay_fuses_to_populated_volume():
     """Decimate 4x (exact pinhole: K/4) and fuse 3 recorded frames."""
     import jax
 
-    from disinfect_slam_tpu.core.geometry import SE3, CameraIntrinsics, CameraParams
-    from disinfect_slam_tpu.core.state import TSDFVolume
-    from disinfect_slam_tpu.ops.integrate import FrameInput, integrate
+    from disinfect_slam.core.geometry import SE3, CameraIntrinsics, CameraParams
+    from disinfect_slam.core.state import TSDFVolume
+    from disinfect_slam.ops.integrate import FrameInput, integrate
 
     from .test_integrate import CFG_DENSE_FILTER
 

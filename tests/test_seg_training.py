@@ -13,13 +13,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.models.segmentation import (
+from disinfect_slam.models.segmentation import (
     create_model,
     default_weights_path,
     load_default_params,
 )
-from disinfect_slam_tpu.models.synth_data import make_batch, make_scene
-from disinfect_slam_tpu.models.train import (
+from disinfect_slam.models.synth_data import make_batch, make_scene
+from disinfect_slam.models.train import (
     TrainState,
     load_params_npz,
     make_eval_step,
@@ -111,7 +111,7 @@ def test_shipped_weights_through_inference_engine():
     """The InferenceEngine contract path (arbitrary-size uint8 RGB in,
     640x360 ht/lt maps out) with the shipped weights segments a scene
     better than chance."""
-    from disinfect_slam_tpu.models.segmentation import InferenceEngine
+    from disinfect_slam.models.segmentation import InferenceEngine
 
     params = load_default_params()
     model = create_model()

@@ -10,13 +10,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from disinfect_slam_tpu.models.segmentation import (
+from disinfect_slam.models.segmentation import (
     InferenceEngine,
     create_model,
     load_default_params,
 )
-from disinfect_slam_tpu.models.synth_data import make_batch
-from disinfect_slam_tpu.models.train import iou_metric
+from disinfect_slam.models.synth_data import make_batch
+from disinfect_slam.models.train import iou_metric
 
 
 @pytest.fixture(scope="module")

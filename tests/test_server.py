@@ -8,8 +8,8 @@ import urllib.request
 
 import numpy as np
 
-from disinfect_slam_tpu.systems.disinf_system import DISINFSystem
-from disinfect_slam_tpu.systems.server import ReconstructionService, make_server
+from disinfect_slam.systems.disinf_system import DISINFSystem
+from disinfect_slam.systems.server import ReconstructionService, make_server
 
 from .scenes import look_at, render_wall
 from .test_integrate import CFG_DENSE, H, K, W
@@ -81,7 +81,7 @@ def test_viewer_page_and_interactive_render():
         (rgb, depth, i * 33, None, None, pose) for i in range(3)
     ]
 
-    from disinfect_slam_tpu.systems.server import ReplayDriver
+    from disinfect_slam.systems.server import ReplayDriver
 
     with DISINFSystem(
         K, depth_factor=1.0, voxel_size=0.05, truncation=0.15,

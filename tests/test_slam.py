@@ -5,8 +5,8 @@ import os
 
 import numpy as np
 
-from disinfect_slam_tpu.io.dataset import LoggedReplay
-from disinfect_slam_tpu.systems.slam import (
+from disinfect_slam.io.dataset import LoggedReplay
+from disinfect_slam.systems.slam import (
     ExternalSLAMBridge,
     TrajectorySource,
     save_matched_trajectory,
@@ -53,7 +53,7 @@ def test_save_matched_trajectory_skips_lost_and_replays(tmp_path):
     assert lines[0].split()[0] == "0"
 
     # the export is replayable by LoggedReplay given matching images
-    from disinfect_slam_tpu.io.png_io import write_image
+    from disinfect_slam.io.png_io import write_image
 
     for fid in (0, 1, 3):
         rgb = np.zeros((8, 8, 3), np.uint8)

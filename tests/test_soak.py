@@ -16,9 +16,9 @@ import time
 
 import numpy as np
 
-from disinfect_slam_tpu.config import TSDFConfig
-from disinfect_slam_tpu.ops.gather import BoundingCube, gather_voxels
-from disinfect_slam_tpu.systems.dense_slam import DenseSLAM
+from disinfect_slam.config import TSDFConfig
+from disinfect_slam.ops.gather import BoundingCube, gather_voxels
+from disinfect_slam.systems.dense_slam import DenseSLAM
 
 from .scenes import checker_rgb, look_at, render_sphere, render_wall
 

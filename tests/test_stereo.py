@@ -4,7 +4,7 @@ stereo only to SLAM, cameras/zed_native.cc:24-33)."""
 
 import numpy as np
 
-from disinfect_slam_tpu.ops.stereo import (
+from disinfect_slam.ops.stereo import (
     StereoDepthEstimator,
     block_match,
     stereo_depth,
@@ -120,7 +120,7 @@ def test_pyramid_recovers_disparity_in_smooth_regions():
     from depth discontinuities, and the discontinuity guard keeps the
     valid set clean near them (confidently-wrong pixels are the failure
     mode coarse-to-fine must not have)."""
-    from disinfect_slam_tpu.ops.stereo import block_match_pyramid
+    from disinfect_slam.ops.stereo import block_match_pyramid
 
     left, right, true_disp = make_pair()
     disp, valid = block_match_pyramid(left, right, max_disp=40, levels=2, band=2)
@@ -138,7 +138,7 @@ def test_pyramid_recovers_disparity_in_smooth_regions():
 
 
 def test_pyramid_single_level_matches_flat_closely():
-    from disinfect_slam_tpu.ops.stereo import block_match_pyramid
+    from disinfect_slam.ops.stereo import block_match_pyramid
 
     left, right, true_disp = make_pair()
     d_flat, v_flat = block_match(left, right, max_disp=40)

@@ -1,6 +1,6 @@
 """Stream synchronizer tests (the reference's topic-pairing semantics)."""
 
-from disinfect_slam_tpu.io.sync import (
+from disinfect_slam.io.sync import (
     ApproximateTimeSynchronizer,
     RGBDPairer,
     StereoPairer,

@@ -14,8 +14,8 @@ import os
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.utils import trajectory_eval as te
-from disinfect_slam_tpu.systems.slam import save_matched_trajectory
+from disinfect_slam.utils import trajectory_eval as te
+from disinfect_slam.systems.slam import save_matched_trajectory
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -5,8 +5,8 @@ import os
 
 import numpy as np
 
-from disinfect_slam_tpu.io.dataset import TUMReplay
-from disinfect_slam_tpu.io.png_io import write_image
+from disinfect_slam.io.dataset import TUMReplay
+from disinfect_slam.io.png_io import write_image
 
 
 def make_tum_fixture(root, n=4):

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from disinfect_slam_tpu.core.geometry import SE3, CameraIntrinsics, CameraParams
-from disinfect_slam_tpu.core.state import TSDFVolume
-from disinfect_slam_tpu.ops.integrate import FrameInput, integrate
-from disinfect_slam_tpu.utils.validate import (
+from disinfect_slam.core.geometry import SE3, CameraIntrinsics, CameraParams
+from disinfect_slam.core.state import TSDFVolume
+from disinfect_slam.ops.integrate import FrameInput, integrate
+from disinfect_slam.utils.validate import (
     VolumeCorruptionError,
     validate_volume,
 )
